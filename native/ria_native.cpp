@@ -1,4 +1,4 @@
-// ria_native: C++ runtime components for the TPU-native HF modem framework.
+// ria_native: C++ runtime components for the accelerator-native HF modem framework.
 //
 // The compute path is JAX/XLA; these are the host-runtime pieces that the
 // reference implements natively (audio ring buffer handoff, per-sample

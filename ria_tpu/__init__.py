@@ -1,12 +1,12 @@
-"""ria_tpu — a TPU-native HF software-modem framework.
+"""ria_tpu — an accelerator-native HF software-modem framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the RIA HF
+A from-scratch JAX/XLA re-design of the capabilities of the RIA HF
 modem reference (adaptive HF data transfer from -14 dB to 30+ dB SNR):
 
 - DSP substrate: batched FIR/overlap-save, polyphase resampling, NCO mixing,
   FFT-based Hilbert transforms (``ria_tpu.dsp``).
 - FEC: 648-bit LDPC (R1/4..R5/6) with a bit-compatible deterministic parity
-  matrix, batched normalized min-sum belief propagation as MXU matmuls,
+  matrix, batched normalized min-sum belief propagation as batched matmuls,
   interleavers, HARQ chase combining (``ria_tpu.fec``).
 - Synchronization: dual linear-FM chirp, Zadoff-Chu root bank, CSS and
   Schmidl-Cox, all as batched FFT correlation (``ria_tpu.sync``).

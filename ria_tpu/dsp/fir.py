@@ -3,7 +3,7 @@
 Tap design matches the reference windowed-sinc formulas
 (reference: src/dsp/filters.cpp:20-77): Hamming-windowed normalized lowpass,
 spectral-inversion highpass, Blackman-windowed bandpass.  Filtering itself is
-redesigned TPU-first: instead of a stateful per-sample delay line, blocks are
+redesigned as array code: instead of a stateful per-sample delay line, blocks are
 convolved via FFT (overlap handled by the caller passing a `tail` carry),
 batched over leading axes.
 """

@@ -2,9 +2,9 @@
 
 The reference uses a windowed-sinc FIR Hilbert in the modem path and an
 FFT-based transform in its test harness (reference: src/sync/chirp_sync.hpp
-notes "FFT-based Hilbert transform which has NO group delay").  On TPU the
-FFT form is both faster and simpler, so it is used everywhere; CFO rotation
-then happens on the complex baseband.
+notes "FFT-based Hilbert transform which has NO group delay").  On an
+accelerator the FFT form is both faster and simpler, so it is used
+everywhere; CFO rotation then happens on the complex baseband.
 """
 
 from __future__ import annotations
@@ -17,10 +17,9 @@ def analytic_signal(x: jnp.ndarray) -> jnp.ndarray:
 
     Standard construction: double positive frequencies, zero negatives.
 
-    Computed on a power-of-two length: XLA's TPU FFT falls back to a
-    Bluestein chirp-Z for other sizes, which measured ~6x slower at the
-    sync-search window size (42720 -> 65536: 3.0 ms -> 0.5 ms for a
-    64-row batch).  Zero-padding a FINITE window changes the analytic
+    Computed on a power-of-two length, the size every FFT library serves
+    fastest (the sync-search windows, e.g. 42720 samples, are not
+    smooth sizes).  Zero-padding a FINITE window changes the analytic
     signal only by the wrap-around leakage the rectangular window already
     causes, and every consumer here (SC metric, chirp correlators)
     normalizes per-lag energy, so the numerical difference is noise-level;

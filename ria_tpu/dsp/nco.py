@@ -24,8 +24,8 @@ def mixer_bank(freqs_hz: np.ndarray, num_samples: int, sample_rate: float) -> np
     """Complex mixer bank e^{-j 2 pi f t} of shape [num_samples, num_freqs].
 
     Host-side constant: multiplying a [symbols, samples] block by this matrix
-    performs mix-and-integrate demodulation for every carrier at once on the
-    MXU (the TPU-native form of the reference's per-carrier loop,
+    performs mix-and-integrate demodulation for every carrier at once on
+    the matrix units (the array form of the reference's per-carrier loop,
     src/psk/multi_carrier_dpsk.hpp:931-946).
     """
     t = np.arange(num_samples, dtype=np.float64)[:, None]

@@ -4,7 +4,7 @@ Contract from the reference (src/dsp/resampler.cpp): upsample-by-L
 zero-stuffing (scaled by L), 64-tap windowed-sinc anti-alias lowpass at
 0.45*min(fin,fout) designed at the high rate, decimate-by-M.
 
-TPU redesign: instead of the reference's per-sample loop, the polyphase
+Array redesign: instead of the reference's per-sample loop, the polyphase
 identity is applied — the output is a strided gather over an FFT
 convolution at the upsampled rate, evaluated without materializing the
 zero-stuffed signal: y[n] = sum_k h[k L + ((n M) mod L)] x[floor(nM/L) - k].

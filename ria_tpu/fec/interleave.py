@@ -1,4 +1,4 @@
-"""Interleavers as static permutation tables (gather ops on TPU).
+"""Interleavers as static permutation tables (gather ops on the device).
 
 All four reference interleavers, each reduced to its permutation:
 

@@ -54,7 +54,7 @@ class LDPCCode:
     - ``h_data [m, k]``: dense 0/1 data part (encoder: parity = h_data @ info mod 2).
     - ``gather [m*D, n]``: one-hot edge->variable matrix; ``x @ gather.T``
       gathers per-edge values, ``msgs @ gather`` scatter-adds onto variables.
-      Expressing gather/scatter as matmuls keeps BP on the MXU.
+      Expressing gather/scatter as matmuls keeps BP on the matrix units.
     """
 
     rate: str

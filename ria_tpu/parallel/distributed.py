@@ -1,17 +1,17 @@
-"""Multi-host (DCN) meshes and process-local data feeding.
+"""Multi-process meshes and process-local data feeding.
 
-The reference is a single process (SURVEY.md §2.12); scale-out across hosts
-is a new TPU-native component.  The recipe:
+The reference is a single process (SURVEY.md §2.12); scale-out across
+processes is a new component.  The recipe:
 
-- ``initialize()`` brings up ``jax.distributed`` (controller handshake over
-  DCN) when launched as one process per host; it is a safe no-op for a
-  single-process run, so the same program serves tests, one host, and a pod.
-- ``make_hybrid_mesh(ch=..., t=...)`` lays a 2D (ch, t) mesh so the ``t``
-  axis — which carries the nearest-neighbor halo ppermutes of
-  parallel.stream — stays INSIDE a host (ICI), while the embarrassingly
-  parallel channel axis crosses hosts (DCN).  This is the standard
-  hybrid-mesh layout (jax mesh_utils.create_hybrid_device_mesh): put the
-  chatty axis on the fast fabric.
+- ``initialize()`` brings up ``jax.distributed`` (coordinator handshake over
+  the network) when launched as one process per host or per card; it is a
+  safe no-op for a single-process run, so the same program serves tests, one
+  host, and a cluster.
+- ``make_hybrid_mesh(ch=..., t=...)`` lays a 2D (ch, t) mesh whose rows are
+  processes: the ``t`` axis — which carries the nearest-neighbor halo
+  ppermutes of parallel.stream — stays INSIDE a process (the cards of one
+  host, joined all to all by NVLink), while the embarrassingly parallel
+  channel axis crosses processes.  Put the chatty axis on the fast fabric.
 - ``put_stream()`` builds the global sharded array from per-process local
   blocks without ever materializing the whole stream on one host
   (``jax.make_array_from_process_local_data``) — each host feeds only the
@@ -45,7 +45,7 @@ def initialize(coordinator_address: str | None = None,
 def make_hybrid_mesh(ch: int | None = None, t: int | None = None) -> Mesh:
     """2D (ch, t) mesh with the halo-exchange axis ``t`` kept on-host.
 
-    Defaults: t = chips per host (ICI domain), ch = number of hosts.  On a
+    Defaults: t = devices per process, ch = number of processes.  On a
     single process this degenerates to ch=1, t=all local devices, which is
     exactly parallel.stream's 1D mesh plus a broadcast channel axis.
     """
@@ -53,17 +53,9 @@ def make_hybrid_mesh(ch: int | None = None, t: int | None = None) -> Mesh:
     n_proc = jax.process_count()
     t = t or n_local
     ch = ch or (len(jax.devices()) // t)
-    if n_proc > 1 and jax.devices()[0].platform == "tpu":
-        from jax.experimental import mesh_utils
-
-        # Hosts tile the ch axis only: dcn shape (n_proc, 1) keeps every
-        # t-axis neighbor pair (the ppermute halo traffic) on one host's ICI.
-        devs = mesh_utils.create_hybrid_device_mesh(
-            (ch, t), dcn_mesh_shape=(n_proc, 1))
-    elif n_proc > 1:
-        # CPU multi-process (the 2-process distributed test): mesh_utils'
-        # topology heuristics reject host meshes, but the layout goal is
-        # just "each mesh row = one process's devices" — build it directly.
+    if n_proc > 1:
+        # Each mesh row = one process's devices, so every t-axis neighbor
+        # pair (the ppermute halo traffic) stays inside one process.
         devs = np.asarray(sorted(jax.devices(),
                                  key=lambda d: (d.process_index, d.id)))
         devs = devs[: ch * t].reshape(ch, t)
@@ -74,7 +66,7 @@ def make_hybrid_mesh(ch: int | None = None, t: int | None = None) -> Mesh:
 
 def put_stream_rows(mesh: Mesh, rows_local: np.ndarray):
     """Build the global [ch, T] array with CHANNEL rows split across hosts
-    (the hybrid layout's cross-DCN axis): each process feeds only its own
+    (the hybrid layout's cross-process axis): each process feeds only its own
     channel rows [ch_local, T]; no host ever materializes another host's
     audio.  Columns stay sharded over the on-host ``t`` axis."""
     sharding = NamedSharding(mesh, P("ch", "t"))

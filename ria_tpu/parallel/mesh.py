@@ -5,7 +5,7 @@ here is a new first-class component: independent channels (audio streams) are
 data-parallel over a `ch` mesh axis, and the batched-LDPC codeword dimension
 is additionally spread over a `cw` axis, so belief propagation scales across
 chips even when few channels are active.  XLA inserts the reshard collectives
-(all-to-all over ICI) at the annotated boundaries.
+(all-to-all over the device interconnect) at the annotated boundaries.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import numpy as np
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ria_tpu.fec.ldpc import make_decoder, make_tile_decoder
+from ria_tpu.fec.ldpc import make_decoder
 from ria_tpu.fec.ldpc_matrix import RECOMMENDED_ITERS
 from ria_tpu.phy.pipeline import LDPC_BITS, OFDMRxBatchResult, RxBatchResult
 from ria_tpu.sync.chirp import detect_dual_chirp
@@ -39,17 +39,13 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
 
 
 def make_sharded_ofdm_rx(mesh: Mesh, ofdm_cfg, rate: str, window_samples: int,
-                         ci_bits: int | None = None,
-                         pallas_interpret: bool = False):
-    """Multi-chip OFDM RX (VERDICT r2 items 2+3): audio [B, window] with the
-    batch sharded over the WHOLE mesh; each device runs the full chain —
-    Schmidl-Cox + LTS search, CP/FFT + MMSE + demap, deinterleave — on its
-    local rows and decodes its local codewords through the Pallas BP tile
-    kernel (on TPU; the XLA decoder elsewhere, or the Pallas interpreter
-    when pallas_interpret=True for CPU-mesh tests).  shard_map keeps the
-    kernel call per-device, which is what lets the flagship kernel run in
-    the sharded path at all — a with_sharding_constraint around a
-    pallas_call would force XLA to partition the custom call itself.
+                         ci_bits: int | None = None):
+    """Multi-chip OFDM RX: audio [B, window] with the batch sharded over the
+    WHOLE mesh; each device runs the full chain — Schmidl-Cox + LTS search,
+    CP/FFT + MMSE + demap, deinterleave — on its local rows and decodes its
+    local codewords with the XLA while_loop decoder.  shard_map keeps the
+    decode per-device, so each device's early exit depends only on its own
+    codewords.
 
     B must be divisible by the device count.
     """
@@ -63,8 +59,7 @@ def make_sharded_ofdm_rx(mesh: Mesh, ofdm_cfg, rate: str, window_samples: int,
     ci_gather = channel_perm(ci_bits) if ci_bits else None
     axes = tuple(mesh.axis_names)
 
-    decoder, tile = make_tile_decoder(rate, min_sum_factor=0.9375,
-                                      pallas_interpret=pallas_interpret)
+    decoder = make_decoder(rate, RECOMMENDED_ITERS[rate], 0.9375)
 
     def local_rx(audio: jnp.ndarray):
         b = audio.shape[0]
@@ -80,16 +75,11 @@ def make_sharded_ofdm_rx(mesh: Mesh, ofdm_cfg, rate: str, window_samples: int,
         if ci_gather is not None:
             cw_soft = cw_soft.reshape(b, 4, LDPC_BITS)[..., jnp.asarray(ci_gather)]
             cw_soft = cw_soft.reshape(b * 4, LDPC_BITS)
-        rows = cw_soft.shape[0]
-        if tile is not None and rows % tile:
-            pad = (-rows) % tile
-            cw_soft = jnp.concatenate(
-                [cw_soft, jnp.zeros((pad, LDPC_BITS), jnp.float32)])
         dec = decoder(cw_soft)
         k = dec.info_bits.shape[-1]
         return (sync.detected, sync.lts_start, sync.cfo_hz,
-                dec.success[:rows].reshape(b, 4) & sync.detected[:, None],
-                dec.info_bits[:rows].reshape(b, 4, k),
+                dec.success.reshape(b, 4) & sync.detected[:, None],
+                dec.info_bits.reshape(b, 4, k),
                 demod.snr_db)
 
     sharded = shard_map(local_rx, mesh=mesh,
@@ -109,19 +99,17 @@ def make_sharded_ofdm_rx(mesh: Mesh, ofdm_cfg, rate: str, window_samples: int,
 
 
 def make_sharded_rx(mesh: Mesh, cfg: MCDPSKConfig, rate: str, num_codewords: int,
-                    window_samples: int, pallas_interpret: bool = False):
+                    window_samples: int):
     """Jitted multi-chip MC-DPSK RX: audio [B, window] with the batch sharded
     over the WHOLE mesh; each device runs sync + demod + LDPC on its local
-    rows, decoding through the Pallas BP tile kernel on TPU (shard_map keeps
-    the kernel call per-device — see make_sharded_ofdm_rx).  B must be
-    divisible by the device count."""
+    rows (shard_map keeps the decode per-device — see make_sharded_ofdm_rx).
+    B must be divisible by the device count."""
     num_bits = num_codewords * LDPC_BITS
     n_sym = cfg.num_data_symbols(num_bits)
     frame_need = (cfg.training_symbols + 1 + n_sym * cfg.spreading) * cfg.samples_per_symbol
     axes = tuple(mesh.axis_names)
 
-    decoder_fn, tile = make_tile_decoder(rate, RECOMMENDED_ITERS[rate],
-                                         pallas_interpret=pallas_interpret)
+    decoder_fn = make_decoder(rate, RECOMMENDED_ITERS[rate])
 
     def local_rx(audio: jnp.ndarray):
         b = audio.shape[0]
@@ -131,16 +119,12 @@ def make_sharded_rx(mesh: Mesh, cfg: MCDPSKConfig, rate: str, num_codewords: int
         frames = jax.vmap(lambda a, s: jax.lax.dynamic_slice(a, (s,), (frame_need,)))(audio, start)
         demod = demodulate(frames, sync.cfo_hz, cfg, n_sym)
         soft = demod.soft_bits[..., :num_bits].reshape(b * num_codewords, LDPC_BITS)
-        rows = soft.shape[0]
-        if tile is not None and rows % tile:
-            soft = jnp.concatenate(
-                [soft, jnp.zeros(((-rows) % tile, LDPC_BITS), jnp.float32)])
         dec = decoder_fn(soft)
         k = dec.info_bits.shape[-1]
         return (sync.detected, sync.start, sync.cfo_hz,
-                dec.success[:rows].reshape(b, num_codewords) & sync.detected[:, None],
-                dec.info_bits[:rows].reshape(b, num_codewords, k),
-                dec.iterations[:rows].reshape(b, num_codewords),
+                dec.success.reshape(b, num_codewords) & sync.detected[:, None],
+                dec.info_bits.reshape(b, num_codewords, k),
+                dec.iterations.reshape(b, num_codewords),
                 demod.snr_estimate_db)
 
     sharded = shard_map(local_rx, mesh=mesh,

@@ -450,8 +450,6 @@ def decode_codewords(soft_bits: np.ndarray, rate: str = "R1_4",
     from ria_tpu.fec.ldpc_matrix import MIN_SUM_FACTOR
 
     soft_bits = np.asarray(soft_bits, np.float32)
-    # Serving dispatch: pads to the Pallas BP kernel's tile on a real TPU
-    # so session decodes run through the flagship VMEM-resident kernel.
     result = decode_batch(soft_bits,
                           np.full(soft_bits.shape[0], MIN_SUM_FACTOR, np.float32),
                           rate, codec.max_iters)

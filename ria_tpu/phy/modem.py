@@ -1,6 +1,6 @@
 """MC-DPSK PHY pipeline: frame bytes <-> audio samples.
 
-The TPU equivalent of the reference's StreamingEncoder/StreamingDecoder MC-DPSK
+The array-program equivalent of the reference's StreamingEncoder/StreamingDecoder MC-DPSK
 path (src/gui/modem/streaming_encoder.cpp:210-251, streaming_decoder.cpp:2595):
 
 TX: serialized frame -> per-CW LDPC encode (+ optional channel interleave) ->

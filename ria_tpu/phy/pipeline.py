@@ -1,6 +1,6 @@
 """Monolithic jitted RX/TX pipelines over batches of channels.
 
-This is the TPU-native answer to the reference's StreamingDecoder hot loop
+This is the array-program answer to the reference's StreamingDecoder hot loop
 (src/gui/modem/streaming_decoder.cpp:354-470 + 2595): instead of a stateful
 per-sample state machine, a whole window of audio per channel is processed as
 one compiled program — sync search (batched FFT correlation), frame slicing
@@ -36,37 +36,19 @@ class RxBatchResult(NamedTuple):
     snr_db: jnp.ndarray      # [B]
 
 
-_PALLAS_TILE = 128
-
-
-def _pick_decoder(rate: str, min_sum_factor: float, cw_batch: int):
-    """XLA decoder by default; the Pallas VMEM-resident BP kernel when on a
-    real TPU backend and the codeword batch fills whole tiles (the kernel's
-    per-tile early exit needs full [tile, 648] blocks)."""
-    if (jax.default_backend() == "tpu" and cw_batch > 0
-            and cw_batch % _PALLAS_TILE == 0):
-        from ria_tpu.fec.ldpc_pallas import make_pallas_decoder
-        return make_pallas_decoder(rate, tile=_PALLAS_TILE,
-                                   min_sum_factor=min_sum_factor)
-    return make_decoder(rate, RECOMMENDED_ITERS[rate], min_sum_factor)
-
-
 @functools.lru_cache(maxsize=None)
 def make_rx_pipeline(cfg: MCDPSKConfig, rate: str, num_codewords: int,
-                     window_samples: int, min_sum_factor: float = 0.75,
-                     batch_hint: int = 0):
+                     window_samples: int, min_sum_factor: float = 0.75):
     """Build a jitted batch RX: audio [B, window] -> RxBatchResult.
 
     Decodes frames of a known codeword count (the common case for fixed-size
     protocol frames; variable frames use the host-side CW0-peek path in
-    ria_tpu.phy.modem).  batch_hint (optional, = the B the caller will use)
-    lets the builder choose the Pallas LDPC kernel when B*num_codewords
-    fills whole tiles.
+    ria_tpu.phy.modem).
     """
     num_bits = num_codewords * LDPC_BITS
     n_sym = cfg.num_data_symbols(num_bits)
     frame_need = (cfg.training_symbols + 1 + n_sym * cfg.spreading) * cfg.samples_per_symbol
-    decoder = _pick_decoder(rate, min_sum_factor, batch_hint * num_codewords)
+    decoder = make_decoder(rate, RECOMMENDED_ITERS[rate], min_sum_factor)
 
     def rx(audio: jnp.ndarray) -> RxBatchResult:
         B = audio.shape[0]
@@ -109,14 +91,14 @@ class OFDMRxBatchResult(NamedTuple):
 
 @functools.lru_cache(maxsize=None)
 def make_ofdm_rx_pipeline(cfg, rate: str, window_samples: int,
-                          ci_bits: int | None = None, batch_hint: int = 0,
+                          ci_bits: int | None = None,
                           min_sum_factor: float = 0.9375):
     """Batched OFDM RX over [B, window]: one jitted program running
     Schmidl-Cox search -> CP strip + 1024-pt FFT -> LTS channel estimate ->
     MMSE equalize -> soft demap -> frame/channel deinterleave (static
-    gathers) -> batched LDPC BP (Pallas on full tiles).
+    gathers) -> batched LDPC BP.
 
-    The TPU answer to the reference's per-symbol OFDM state machine
+    The array-program answer to the reference's per-symbol OFDM state machine
     (src/ofdm/demodulator.cpp:787-1093): the whole fixed 4-CW data frame
     (streaming_encoder.cpp encodeFixedFrame) of every channel is one
     compiled program.  cfg: wave.ofdm.OFDMConfig.
@@ -127,7 +109,7 @@ def make_ofdm_rx_pipeline(cfg, rate: str, window_samples: int,
     num_bits = 4 * LDPC_BITS
     S = cfg.num_symbols_for_bits(num_bits)
     need = (2 + S) * cfg.symbol_samples
-    decoder = _pick_decoder(rate, min_sum_factor, batch_hint * 4)
+    decoder = make_decoder(rate, RECOMMENDED_ITERS[rate], min_sum_factor)
 
     # Static deinterleave gathers (inverse of apply_perm's scatter form):
     # frame deinterleave = x[..., frame_perm()]; channel deinterleave (within

@@ -34,8 +34,7 @@ class ARQMode(enum.Enum):
 # connection.py) must never collide with data seqs: data tx_seq wraps the
 # full 16-bit space, so after ~64.8k frames in one connection a data frame
 # would otherwise land in the range and its ACKs be dropped by the
-# connection-layer control filter (retransmit storm, then hard failure —
-# advisor r4).  Data seq allocation skips the range on BOTH ends (TX
+# connection-layer control filter (retransmit storm, then hard failure).  Data seq allocation skips the range on BOTH ends (TX
 # allocation and RX next-seq advancement use the same rule, so the
 # sequence space stays contiguous as seen by the ARQ).
 _CTRL_SEQ_LO, _CTRL_SEQ_HI = 0xFD00, 0xFEFF

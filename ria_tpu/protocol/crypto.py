@@ -12,8 +12,6 @@ from __future__ import annotations
 import os
 import zlib
 
-from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
-
 AES_BLOCK = 16
 MIN_COMPRESS_SIZE = 32
 COMPRESS_LEVEL = 6
@@ -33,6 +31,17 @@ def _pkcs7_unpad(data: bytes) -> bytes:
     return data[:-pad]
 
 
+def _cbc(key: bytes, iv: bytes):
+    # Imported here so that sessions without encryption need no
+    # `cryptography` package.
+    try:
+        from cryptography.hazmat.primitives.ciphers import Cipher, algorithms, modes
+    except ImportError as e:
+        raise ImportError(
+            "payload encryption (AES256) needs the 'cryptography' package") from e
+    return Cipher(algorithms.AES(key), modes.CBC(iv))
+
+
 class AES256:
     """AES-256-CBC, wire = IV || ciphertext (reference src/crypto/aes256.hpp)."""
 
@@ -49,7 +58,7 @@ class AES256:
 
     def encrypt(self, plaintext: bytes, iv: bytes | None = None) -> bytes:
         iv = iv or os.urandom(AES_BLOCK)
-        enc = Cipher(algorithms.AES(self.key), modes.CBC(iv)).encryptor()
+        enc = _cbc(self.key, iv).encryptor()
         ct = enc.update(_pkcs7_pad(plaintext)) + enc.finalize()
         return iv + ct
 
@@ -57,7 +66,7 @@ class AES256:
         if len(wire) < 2 * AES_BLOCK:
             raise ValueError("ciphertext too short")
         iv, ct = wire[:AES_BLOCK], wire[AES_BLOCK:]
-        dec = Cipher(algorithms.AES(self.key), modes.CBC(iv)).decryptor()
+        dec = _cbc(self.key, iv).decryptor()
         return _pkcs7_unpad(dec.update(ct) + dec.finalize())
 
 

@@ -12,7 +12,7 @@ Model contract from the reference (src/sim/hf_channel.hpp:35-303):
 - ITU-R presets: Good 0.5ms/0.1Hz, Moderate 1.0/0.5, Poor 2.0/1.0,
   Flutter 0.5/10, AWGN-only.
 
-TPU redesign: the per-sample IIR fading recurrence is an AR(1) process and is
+Array redesign: the per-sample IIR fading recurrence is an AR(1) process and is
 evaluated with an associative scan (O(log n) depth) instead of a sequential
 loop; everything else is elementwise/batched.  RNG is jax.random (counter
 based) — seeds give reproducibility, but the noise stream is not bit-equal to

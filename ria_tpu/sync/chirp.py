@@ -1,4 +1,4 @@
-"""Dual linear-FM chirp synchronization (TPU-native FFT matched filter).
+"""Dual linear-FM chirp synchronization (batched FFT matched filter).
 
 Numeric contract from the reference (src/sync/chirp_sync.hpp):
 - up-chirp 300->2700 Hz over 500 ms, 100 ms gap, down-chirp 2700->300 Hz,
@@ -11,7 +11,7 @@ Numeric contract from the reference (src/sync/chirp_sync.hpp):
   up-chirp start is up_pos + CFO*fs/chirp_rate (detectDualChirp :352-512);
 - reject |CFO| > 100 Hz; default threshold 0.15.
 
-TPU redesign: the whole search window is one (batched) FFT correlation and an
+Array redesign: the whole search window is one (batched) FFT correlation and an
 argmax — there is no coarse/fine stepping; every lag is evaluated at once.
 
 For large windows a zoom-FFT fast path computes the correlation on a
@@ -22,7 +22,7 @@ nfft/_ZOOM_DECIM bins (a 3 kHz band at D=16/fs=48k, holding the
 10/10 at -14 dB) and running an nfft/D-point IFFT yields c(D*m)
 (critically-sampled band-limited signal) at 1/D of the transform cost, from a
 single shared rfft of the input.  The coarse argmax is then refined to
-sample resolution with one small MXU matmul (shifted-template columns)
+sample resolution with one small matmul (shifted-template columns)
 that also produces the exact normalized correlation value used for
 thresholding — so detection semantics match the full-resolution path.
 """

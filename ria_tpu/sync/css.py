@@ -7,7 +7,7 @@ Contract from the reference (src/sync/css_sync.hpp):
 - detection: matched-filter position search, then dechirp (multiply by
   conjugate base chirp) + FFT — the peak bin reveals the cyclic shift.
 
-TPU form: matched filter for all 4 shifted templates at once (batched FFT
+Array form: matched filter for all 4 shifted templates at once (batched FFT
 correlation like ria_tpu.sync.chirp), frame type from the argmax template.
 """
 

@@ -14,7 +14,7 @@ Numeric contract from the reference (src/sync/zc_sync.hpp):
 - correlation -> SNR map 20 log10(c/(1-c+0.01)) clamped [-10, 30] (:628-633);
 - start_sample points PAST the preamble (payload start) (:380).
 
-TPU redesign: one batched FFT correlates the window against all enabled root
+Array redesign: one batched FFT correlates the window against all enabled root
 templates at once; the coarse/fine stepping is replaced by evaluating every
 lag exactly.
 """

@@ -1,6 +1,6 @@
 """Waveform abstraction: unified TX/RX interface over MC-DPSK and OFDM.
 
-The TPU counterpart of the reference's IWaveform plugin interface
+The array-program counterpart of the reference's IWaveform plugin interface
 (src/waveform/waveform_interface.hpp:47-220) and WaveformFactory
 (src/waveform/waveform_factory.hpp:18-60).  Each waveform provides:
 

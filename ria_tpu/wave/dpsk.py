@@ -8,7 +8,7 @@ Numeric contract from the reference (src/psk/dpsk.hpp):
   training symbols + reference symbol in chirp-synced mode (:153-208);
 - raw "ULTR" PING bytes ride this waveform uncoded.
 
-TPU redesign: symbol demod is a [S, sps] @ [sps, 1] mix-integrate (shared
+Array redesign: symbol demod is a [S, sps] @ [sps, 1] mix-integrate (shared
 machinery with MC-DPSK at num_carriers=1); Barker detection correlates the
 per-symbol differential sign sequence at all symbol-rate lags at once.
 """

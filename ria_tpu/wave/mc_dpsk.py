@@ -1,4 +1,4 @@
-"""Multi-Carrier DPSK waveform (the low-SNR workhorse), TPU-native.
+"""Multi-Carrier DPSK waveform (the low-SNR workhorse), as array programs.
 
 Numeric contract from the reference (src/psk/multi_carrier_dpsk.hpp):
 - N carriers evenly spaced freq_low..freq_high (default 10 @ 500-2500 Hz),
@@ -15,9 +15,9 @@ Numeric contract from the reference (src/psk/multi_carrier_dpsk.hpp):
 - trailing-silence exclusion: reference energy = mean of first 4 symbols,
   symbols below 20% excluded from reliability stats (:604-632).
 
-TPU redesign: modulation and demodulation are single complex matmuls against
+Array redesign: modulation and demodulation are single complex matmuls against
 a static [samples_per_symbol, carriers] mixer bank — every symbol and every
-carrier at once on the MXU — instead of per-carrier per-sample loops.
+carrier at once on the matrix units — instead of per-carrier per-sample loops.
 """
 
 from __future__ import annotations

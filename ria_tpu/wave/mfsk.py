@@ -9,7 +9,7 @@ Numeric contract from the reference (src/fsk/mfsk.hpp):
 - demod: per-tone power (Goertzel in the reference), repetition combining,
   max-power decisions.
 
-TPU redesign: per-tone power for every symbol is one |[S, sps] @ [sps, T]|^2
+Array redesign: per-tone power for every symbol is one |[S, sps] @ [sps, T]|^2
 matmul; preamble search scores the known sweep at every offset with a
 batched strided-window matmul; soft bits via max-log over tone powers.
 """

@@ -25,7 +25,7 @@ Numeric contract from the reference:
   CE error margins, per-carrier EMA instability inflation (K=10)
   (src/ofdm/soft_demap.hpp, src/ofdm/demodulator.cpp:234-332).
 
-TPU redesign: whole frames are demodulated as one batched program — all
+Array redesign: whole frames are demodulated as one batched program — all
 symbols CP-stripped and FFT'd at once, equalized with broadcast H, demapped
 vectorized; the only sequential piece (per-carrier EMA + differential chain)
 is a short lax.scan over the symbol axis.

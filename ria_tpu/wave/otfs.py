@@ -14,7 +14,7 @@ src/otfs/otfs.cpp):
 - two RX modes: TF-equalized (OTFS_EQ, stable channels) and raw-DD
   (OTFS_RAW + differential, poor channels).
 
-TPU redesign: the whole frame is a pair of batched 2D FFTs plus one
+Array redesign: the whole frame is a pair of batched 2D FFTs plus one
 [N, fft] symbol FFT — no loops.
 """
 

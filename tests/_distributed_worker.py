@@ -3,7 +3,7 @@ tests/test_parallel.py::test_distributed_two_process_decode via subprocess).
 
 Each process owns 4 virtual CPU devices; together they form an 8-device
 (ch=2, t=4) hybrid mesh — the t axis (halo ppermutes) stays inside a
-process, the ch axis crosses the coordinator boundary like DCN would.
+process, the ch axis crosses the process boundary.
 
 Work proven here:
 1. jax.distributed.initialize handshake (2 processes, local coordinator);

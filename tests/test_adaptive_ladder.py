@@ -1,4 +1,4 @@
-"""CI pins for the adaptive mode ladder (VERDICT r2 item 6).
+"""CI pins for the adaptive mode ladder.
 
 Two layers:
 - the full-session good-fading SNR sweep (tools/adaptive_session_sweep.py

@@ -225,7 +225,7 @@ def test_qam64_r34_rung_decodes_at_24db_awgn():
 
 
 def test_single_frame_never_misroutes_to_burst_rx():
-    """VERDICT r3 weak #6: in a burst-negotiated session, a single light
+    """In a burst-negotiated session, a single light
     frame whose preamble over-counts LTS repeats (e.g. a reference peer's
     standard light preamble measured repeats=3) must still deliver as a
     single frame.  The repeat count is a hint; the CRC-gated single-frame

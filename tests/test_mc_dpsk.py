@@ -62,7 +62,7 @@ def _rx_frame(audio: np.ndarray, cfg: MCDPSKConfig, num_bits: int, lead: int = 0
 def test_loopback_awgn(bps, spreading, snr_db):
     cfg = MCDPSKConfig(bits_per_symbol=bps, spreading=spreading)
     codec = LDPCCodec("R1_4")
-    payload = bytes(b"HELLO RIA-TPU WORLD!")  # one R1/4 codeword (20 bytes)
+    payload = bytes(b"HELLO RIA-GPU WORLD!")  # one R1/4 codeword (20 bytes)
     rng = np.random.default_rng(1234)
 
     tx, num_bits = _tx_frame(payload, cfg, codec)

@@ -73,7 +73,7 @@ def test_ofdm_rx_pipeline_config3():
     rms = float(np.sqrt(np.mean(tx**2)))
     audio += rng.normal(0, rms * 10 ** (-15 / 20), audio.shape).astype(np.float32)
 
-    rx = make_ofdm_rx_pipeline(cfg, rate, window, ci, batch_hint=B)
+    rx = make_ofdm_rx_pipeline(cfg, rate, window, ci)
     out = jax.block_until_ready(rx(audio))
     assert np.asarray(out.detected).all()
     assert np.asarray(out.cw_success).all()

@@ -94,6 +94,31 @@ def test_aes256_roundtrip():
     assert len(ct) % 16 == 0
 
 
+def test_station_imports_without_cryptography():
+    """Sessions and the CLI need no `cryptography` package; only
+    encryption does, and it says so."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys\n"
+        "sys.modules['cryptography'] = None\n"
+        "import ria_tpu.phy.station, ria_tpu.cli\n"
+        "from ria_tpu.protocol import AES256\n"
+        "try:\n"
+        "    AES256(bytes(32)).encrypt(b'x')\n"
+        "except ImportError as e:\n"
+        "    print('IMPORT_ERROR', e)\n")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "IMPORT_ERROR" in r.stdout and "cryptography" in r.stdout
+
+
 def test_compression_gate():
     small, was = compress(b"short")
     assert not was and small == b"short"
@@ -727,7 +752,7 @@ def test_data_seq_allocation_skips_ctrl_range():
     after ~64.8k frames in one connection the data seq space would
     otherwise enter the range the connection layer filters, so every
     cumulative ACK for those 512 seqs would be silently dropped —
-    retransmit storm, then hard failure at max_retries (advisor r4)."""
+    retransmit storm, then hard failure at max_retries."""
     from ria_tpu.protocol.arq import next_seq, prev_seq
 
     for cls in (StopAndWaitARQ, SelectiveRepeatARQ):
@@ -780,7 +805,7 @@ def test_far_future_ack_ignored():
     """An ACK far ahead of the window base (outside window_size+1 steps)
     must not complete in-flight slots — corrupted or foreign seqs (e.g.
     a stale connection's handshake ctrl seqs) could otherwise falsely
-    complete data (advisor r4; reference handleAckFrame guard,
+    complete data (reference handleAckFrame guard,
     selective_repeat_arq.cpp:216-231)."""
     from ria_tpu.phy.frame_v2 import ControlFrame
 

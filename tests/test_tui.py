@@ -92,7 +92,7 @@ def test_attached_console_over_host_interface():
 
 
 def test_tui_compose_mode_protects_command_letters():
-    """ADVICE r2: a message starting with c/d/b/q must be composable —
+    """A message starting with c/d/b/q must be composable —
     bare letters are commands only OUTSIDE compose mode."""
     from ria_tpu.runtime.tui import TuiApp
     from ria_tpu.sim import awgn

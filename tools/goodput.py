@@ -25,10 +25,6 @@ import sys as _sys
 
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
-from ria_tpu.utils.platform import apply_platform
-
-apply_platform(_os.environ.get("RIA_PLATFORM", "cpu"))
-
 
 def measure_goodput(channel: str, snr_db: float, seed: int,
                     payload_bytes: int = 4096, max_ticks: int = 3000) -> dict:
